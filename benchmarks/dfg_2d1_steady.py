@@ -11,7 +11,7 @@ are dimensionless and unchanged; dP scales by Ubar^2 = 0.04).
 The lift is 500x smaller than the drag and is the single most
 geometry-sensitive quantity of the benchmark family: this script is the
 cheap mesh-quality probe that exposed the res-2 cylinder ring artifact
-behind the 2D-2 lift deficit (docs/ROUND4.md) -- steady c_L across the
+behind the 2D-2 lift deficit (docs/VALIDATION.md) -- steady c_L across the
 resolution ladder is non-monotonic (res 1.3: 0.01093 in, res 2:
 0.01015 out, res 3: 0.01098 in) while c_D stays inside the interval
 everywhere.

@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """FE-interpolate a saved DFG 2D-2 state onto a finer cylinder mesh.
 
-Mesh-refinement runs of the saturated vortex street (docs/ROUND3.md item
-3) should not pay the full ~100-time-unit saturation transient again: a
+Mesh-refinement runs of the saturated vortex street should not pay the full ~100-time-unit saturation transient again: a
 saturated coarse-mesh limit cycle interpolated onto the finer mesh
 re-saturates in a few shedding periods.  This tool reads a state written
 by ``benchmarks/dfg_2d2.py`` (``results/dfg_2d2_state*.npz``), evaluates

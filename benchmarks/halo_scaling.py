@@ -8,8 +8,8 @@ On virtual CPU devices (XLA_FLAGS=--xla_force_host_platform_device_count)
 all "devices" share the host's cores, so wall-clock does NOT show real
 speedup -- the point of the table is (a) the halo path works end-to-end
 at every device count, (b) per-device owned/halo sizes shrink as O(N/n),
-(c) the collective volume (halo fraction) stays small.  Real-ICI timing
-needs real chips.
+(c) the collective volume (halo fraction) stays small.  Interconnect
+timing needs real cards.
 
 Usage:
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \

@@ -1,13 +1,11 @@
-"""navierstokes_tpu — a TPU-native incompressible Navier-Stokes FEM framework.
+"""navierstokes_tpu — a JAX-native incompressible Navier-Stokes FEM framework.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
-``LKM-code-base/NavierStokes-with-Fenics`` (reference mounted read-only at
-/root/reference).  The reference delegates all heavy lifting to the FEniCS
-C++/PETSc stack; here the discretization lives as static device arrays
-(mesh, dofmaps, sparsity, tabulated shape functions) and everything executed
-per Newton iteration / per time step (element-kernel assembly, SpMV, Krylov
-solves) is jit-compiled JAX, with Pallas kernels on the bandwidth-critical
-paths.
+A from-scratch JAX/XLA re-design of the capabilities of
+``LKM-code-base/NavierStokes-with-Fenics``.  The reference delegates all
+heavy lifting to the FEniCS C++/PETSc stack; here the discretization lives
+as static device arrays (mesh, dofmaps, sparsity, tabulated shape
+functions) and everything executed per Newton iteration / per time step
+(element-kernel assembly, SpMV, Krylov solves) is jit-compiled JAX.
 
 Layer map (mirrors SURVEY.md §1 of the reference):
 

@@ -2,11 +2,11 @@
 
 Two jobs:
 
-* the high-precision half of **mixed-precision iterative refinement** on
-  TPU: the chip runs float32 Krylov (fast), the host evaluates the true
+* the high-precision half of **mixed-precision iterative refinement**:
+  the device runs float32 Krylov (fast), the host evaluates the true
   float64 residual and accumulates the float64 iterate, so the
   reference's ||F|| <= 1e-10 contract
-  (/root/reference/source/ns_solver_base.py:986-988) holds even though
+  (the reference's source/ns_solver_base.py:986-988) holds even though
   the accelerator has no fast float64 path (SURVEY.md hard part #5);
 * an independent cross-check of the jitted device kernels (same math,
   different code path and arithmetic order).

@@ -7,7 +7,7 @@ dolfin/PETSc SystemAssembler + Mat (reference: source/auxiliary_classes.py:
 141, ns_solver_base.py:938-949).
 
 SpMV runs as a gather + segment-sum over rows, which XLA lowers to
-bandwidth-bound fused kernels on TPU; rows are CSR-sorted so the segment
+bandwidth-bound fused kernels; rows are CSR-sorted so the segment
 ids are contiguous.
 """
 

@@ -112,8 +112,7 @@ def _morton_order(coords: np.ndarray) -> np.ndarray:
     """Permutation sorting points along a Morton (Z-order) curve.
 
     Used to renumber dof ranks for memory locality: cell gathers then touch
-    nearby rows, which matters on TPU where the matvec hot path is
-    gather-bound.
+    nearby rows, which matters where the matvec hot path is gather-bound.
     """
     x = coords - coords.min(axis=0)
     scale = x.max(axis=0)

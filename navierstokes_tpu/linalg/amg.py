@@ -40,7 +40,7 @@ class _DeviceCSR:
 
 
 class _DeviceDense:
-    """Small-level dense operator: one MXU matmul per matvec."""
+    """Small-level dense operator: one dense matmul per matvec."""
 
     def __init__(self, sp_mat, dtype):
         self.n_rows, self.n_cols = sp_mat.shape
@@ -124,10 +124,11 @@ class AMG:
             from navierstokes_tpu import config
             dtype = config.default_dtype()
         if dense_level_cap is None:
-            # dense levels ride the MXU on TPU, but they are embedded as
-            # HLO constants by closing callers -- a 4k x 4k f64 constant
-            # sent XLA:CPU into pathological constant-folding inside
-            # while loops.  Keep the dense tail small by default.
+            # dense levels are embedded as HLO constants by closing
+            # callers -- a 4k x 4k f64 constant sent XLA:CPU into
+            # pathological constant-folding inside while loops.  Keep the
+            # dense tail small by default.  The cap was chosen on the first
+            # accelerator and has not been measured on the H100.
             dense_level_cap = int(os.environ.get("NS_AMG_DENSE_CAP", "768"))
         self.pre_smooth = pre_smooth
         self.post_smooth = post_smooth
@@ -150,10 +151,10 @@ class AMG:
             P = sp.csr_matrix((sp.eye(A.shape[0]) - c * Dinv @ A) @ P0)
             # the transfers are never stored: P = (I - c D^-1 A) P0 and
             # R = P^T factor through THIS level's matvec plus a plain
-            # aggregation gather / segment-sum (TPU-friendly: the big
-            # CSR P/R gathers were the V-cycle's dominant cost).  Levels
-            # at or below ``dense_level_cap`` rows store A densely --
-            # one small MXU matmul instead of a serial-gather SpMV.
+            # aggregation gather / segment-sum (on the first accelerator the
+            # big CSR P/R gathers were the V-cycle's dominant cost).  Levels at
+            # or below ``dense_level_cap`` rows store A densely -- one
+            # small matmul instead of a gather SpMV.
             dense = A.shape[0] <= dense_level_cap
             self.levels.append({
                 "A": (_DeviceDense(A, dtype) if dense

@@ -4,7 +4,7 @@
 saddle-point systems -- the role PETSc LU plays in the reference,
 ns_solver_base.py:938).  ``host_sparse_lu`` is a CPU fallback backed by
 SuperLU through scipy for medium validation meshes where a dense factor
-would not fit; the TPU production path uses the Krylov solvers instead.
+would not fit; the accelerator path uses the Krylov solvers instead.
 """
 
 from __future__ import annotations

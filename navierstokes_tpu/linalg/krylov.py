@@ -3,7 +3,7 @@
 These replace the PETSc LU / KSP solves of the reference
 (``PETScLUSolver``, ns_solver_base.py:938; ``LinearVariationalSolver``,
 ns_ipcs_solver.py:171,196) with jit-compiled iterative methods running on
-TPU: CG for the SPD sub-problems (pressure Poisson, mass matrices) and
+the device: CG for the SPD sub-problems (pressure Poisson, mass matrices) and
 (F)GMRES/BiCGStab for nonsymmetric systems.  All accept either a
 ``CSRMatrix`` / dense matrix or a matvec callable.
 """
@@ -33,11 +33,15 @@ def jacobi_preconditioner(diag, floor=1e-30):
 def cg(A, b, x0=None, tol=1e-12, atol=0.0, maxiter=None, M=None):
     """Preconditioned conjugate gradients (jax.scipy backend).
 
-    Returns ``(x, residual_norm)``.
+    Returns ``(x, residual_norm)``.  A positive ``tol`` below the
+    precision of ``b``'s dtype is raised to it: in float32 a 1e-14 target
+    drives the recursive residual to underflow and CG's step to 0/0.
     """
     mv = _as_matvec(A)
     if maxiter is None:
         maxiter = 10 * len(b)
+    if tol > 0.0:
+        tol = max(tol, 8.0 * float(jnp.finfo(jnp.result_type(b)).eps))
     x, _ = jax.scipy.sparse.linalg.cg(mv, b, x0=x0, tol=tol, atol=atol,
                                       maxiter=maxiter, M=M)
     res = jnp.linalg.norm(b - mv(x))

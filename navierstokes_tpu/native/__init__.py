@@ -6,7 +6,7 @@ the reference gets from the dolfin C++ core.  The shared library is built
 with g++ on first use and cached next to the source; every entry point has
 a NumPy fallback, so the package works without a compiler.
 
-Set ``NS_TPU_NO_NATIVE=1`` to force the NumPy fallbacks.
+Set ``NS_NO_NATIVE=1`` to force the NumPy fallbacks.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def get_library():
     if _load_attempted:
         return _lib
     _load_attempted = True
-    if os.environ.get("NS_TPU_NO_NATIVE", "") == "1":
+    if os.environ.get("NS_NO_NATIVE", "") == "1":
         return None
     if not os.path.exists(_LIB_PATH) or (
             os.path.getmtime(_LIB_PATH) < os.path.getmtime(_SRC)):

@@ -11,7 +11,7 @@ but it cannot weak-scale.  This layer partitions the *dofs*:
 * each device stores ONLY its own dof chunk plus a halo -- the few nodes
   of neighboring ranges its cells touch;
 * a matvec is: ppermute halo values in (one shuffle per active partner
-  offset, riding ICI) -> local element kernel + transpose-gather scatter
+  offset, over the interconnect) -> local element kernel + transpose-gather scatter
   -> ppermute halo contributions back to their owners and add.
 
 Per-device memory is O(dofs/n_dev + halo) and the collective volume is

@@ -1,6 +1,6 @@
 """Application-facing problem classes (hooks API + orchestration + IO).
 
-TPU-native counterparts of the reference's ``ProblemBase`` /
+JAX-native counterparts of the reference's ``ProblemBase`` /
 ``StationaryProblem`` / ``InstationaryProblem``
 (source/ns_problem.py:17-736), preserving the template-method shape: apps
 subclass a Problem, override the ``setup_mesh`` / ``set_*`` /

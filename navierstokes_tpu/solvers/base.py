@@ -1,6 +1,6 @@
 """Shared solver machinery: spaces, BC bookkeeping, coefficients, sources.
 
-TPU-native counterpart of the reference's ``SolverBase``
+JAX-native counterpart of the reference's ``SolverBase``
 (source/ns_solver_base.py:59-870): the same setter API and validation rules
 (BC format checks :302-368, velocity/traction conflict rules :767-794,
 traction BCs forcing the traction-form viscous term :823-825, internal

@@ -4,7 +4,7 @@ The same incremental pressure-correction scheme as
 ``solvers/fused_step.py`` (reference prototype scripts/test_ipcs.py:102-171),
 but every state vector is *partitioned* over a ``jax.sharding.Mesh``:
 per-device memory is O(dofs/n_dev + halo) and each matvec moves only the
-halo over ICI (``lax.ppermute`` inside the HaloCellOperator kernels).
+halo over the interconnect (``lax.ppermute`` inside the HaloCellOperator kernels).
 This is the multi-chip slot of the reference stack -- parmetis/MPI domain
 decomposition + distributed PETSc solves
 (/root/reference/environment.yml:63-65, SURVEY.md par.2.2) -- expressed
@@ -17,7 +17,7 @@ kept zero by construction (padded cells carry zero quadrature weight, and
 the mean/mask projections re-zero them).  Dot products inside CG run on
 the sharded vectors directly -- XLA inserts the all-reduce.
 
-Dirichlet conditions (VERDICT r2: the halo layer had none) use the same
+Dirichlet conditions use the same
 SPD-preserving mask projection as the single-device steps, with mask and
 value arrays converted into the partitioned layout once at build time.
 """

@@ -13,7 +13,7 @@ three sub-solves per step on the collapsed subspaces,
      (u, w) = (u*, w) - (k/alpha0) (grad(p - p_old), w) with velocity
      Dirichlet BCs (:173-196).
 
-This is the TPU-performance path: steps 2 and 3 are SPD solves running as
+This is the fast path: steps 2 and 3 are SPD solves running as
 matrix-free CG at SpMV speed; step 1 reuses the sparse velocity-block
 Newton.
 
@@ -105,7 +105,7 @@ class IPCSSolver(InstationarySolverBase):
         vmask[np.asarray(self._vel_dirichlet.dofs, dtype=np.int64)] = True
         self._v_bc_mask = jnp.asarray(vmask)
 
-        # round-3 at-scale linalg (VERDICT r2 weak #8): AMG-CG for the
+        # at-scale linalg: AMG-CG for the
         # SPD sub-solves, AMG-preconditioned GMRES Newton-Krylov for the
         # diffusion step -- the reference-shaped fractional-step solver
         # at the same iteration counts as the monolithic round-2 stack.

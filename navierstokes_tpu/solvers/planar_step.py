@@ -97,39 +97,12 @@ def _step_core(ops, masks, u, u_old, p, phi, alpha, eta, bc_values, k,
 
     if isinstance(ops.M, CirculantBand) and isinstance(ops.K,
                                                        CirculantBand):
-        # one fused band: halves the band HBM traffic and kernel count
-        # of every velocity-CG iteration (combine paid once per step)
-        helm_op = combine_circulant([(a0 / k, ops.M), (visc, ops.K)])
-        helm = helm_op.apply
+        # one fused band: halves the band traffic and kernel count of
+        # every velocity-CG iteration (combine paid once per step)
+        helm = combine_circulant([(a0 / k, ops.M), (visc, ops.K)]).apply
     else:
-        helm_op = None
-
         def helm(v):
             return (a0 / k) * ops.M.apply(v) + visc * ops.K.apply(v)
-
-    def _cg_fast(band_op, bvec, x0v, iters, inv_diag, maskv, meanfree):
-        """Whole-solve Pallas PCG (assembly/pallas_band.py) when the
-        operator/backend admit it; None -> caller falls back to _pcg.
-        Identical math (same guards/ordering); removes the per-iteration
-        kernel-launch overhead that dominates the small pressure
-        solves."""
-        if cg_rtol is not None or band_op is None \
-                or not isinstance(band_op, CirculantBand):
-            return None
-        if jax.default_backend() != "tpu" \
-                or bvec.dtype != jnp.float32:
-            return None
-        from navierstokes_tpu.assembly import pallas_band as _pb
-
-        batch = 1 if bvec.ndim == 1 else int(bvec.shape[0])
-        if not _pb.cg_eligible(band_op.offsets, band_op.n, bvec.dtype,
-                               band_op.nbytes, batch):
-            return None
-        if maskv is None:
-            maskv = jnp.asarray(1.0, bvec.dtype)
-        x, r = _pb.circulant_pcg(band_op.band, band_op.offsets, bvec,
-                                 x0v, inv_diag, maskv, iters, meanfree)
-        return x, jnp.linalg.norm(r.reshape(-1))
 
     def grad(q):
         return jnp.stack([Gd.apply(q) for Gd in ops.G], axis=0)
@@ -178,35 +151,21 @@ def _step_core(ops, masks, u, u_old, p, phi, alpha, eta, bc_values, k,
     inv_diag_h = inv((a0 / k) * ops.diag_m + visc * ops.diag_k)
     H_m, fix = masked_u(helm)
     b, x0 = fix(b, u)
-    got = _cg_fast(helm_op, b, x0, cg_iters[0], inv_diag_h, v_free,
-                   False)
-    if got is None:
-        got = _pcg(H_m, b, x0, cg_iters[0], inv_diag=inv_diag_h,
-                   rtol=cg_rtol)
-    u_star, res_h = got
+    u_star, res_h = _pcg(H_m, b, x0, cg_iters[0], inv_diag=inv_diag_h,
+                         rtol=cg_rtol)
 
     # (2) incremental pressure Poisson (warm-started)
     rhs = project_p((a0 / k) * div(u_star))
-    got = None if p_precond is not None else _cg_fast(
-        ops.L, rhs, project_p(phi), cg_iters[1], inv(ops.diag_l),
-        p_free, p_free is None)
-    if got is None:
-        got = _pcg(stiff_masked, rhs, project_p(phi), cg_iters[1],
-                   inv_diag=inv(ops.diag_l), project=project_p,
-                   rtol=cg_rtol, precond_fn=p_precond)
-    phi_new, res_p = got
+    phi_new, res_p = _pcg(stiff_masked, rhs, project_p(phi), cg_iters[1],
+                          inv_diag=inv(ops.diag_l), project=project_p,
+                          rtol=cg_rtol, precond_fn=p_precond)
 
     # (3) velocity correction
     b_corr = mass_u(u_star) - (k / a0) * grad(phi_new)
     M_m, fix = masked_u(mass_u)
     b_corr, x0 = fix(b_corr, u_star)
-    got = _cg_fast(ops.M if isinstance(ops.M, CirculantBand) else None,
-                   b_corr, x0, cg_iters[2], inv(ops.diag_m), v_free,
-                   False)
-    if got is None:
-        got = _pcg(M_m, b_corr, x0, cg_iters[2],
-                   inv_diag=inv(ops.diag_m), rtol=cg_rtol)
-    u_new, res_m = got
+    u_new, res_m = _pcg(M_m, b_corr, x0, cg_iters[2],
+                        inv_diag=inv(ops.diag_m), rtol=cg_rtol)
 
     p_new = p + phi_new
     if rotational:
@@ -347,8 +306,7 @@ def build_planar_projection_step(fast, *, visc, dt, cg_iters=(12, 45, 8),
     # expose the traced-argument pieces so callers embedding the step in a
     # LARGER jitted program (e.g. a lax.scan over steps) can pass the
     # operator bundle as an argument instead of closing over it -- a
-    # closure would bake the band arrays into the HLO as constants, which
-    # exceeds remote-compile transport limits at scale
+    # closure would bake the band arrays into the HLO as constants
     step.ops = ops
     step.masks = masks
     step.static = dict(

@@ -33,7 +33,7 @@ def auto_linear_mode(n) -> str:
     exists there)."""
     if n <= _DENSE_LIMIT:
         return "dense"
-    if not config.on_tpu():
+    if not config.on_accelerator():
         return "host_lu"
     return "pcd"
 
@@ -324,7 +324,7 @@ class StationarySolverBase(SolverBase):
             self._pcd_ctx = ctx
         import os as _os
 
-        verbose = _os.environ.get("NS_TPU_VERBOSE", "") == "1"
+        verbose = _os.environ.get("NS_VERBOSE", "") == "1"
         k = 0
         for k in range(maxiter):
             if res <= tol:

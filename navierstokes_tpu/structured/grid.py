@@ -14,13 +14,13 @@ lattice:
 
 Every FEM operator with constant coefficients is then block-circulant over
 the cell lattice: operator application is a fixed *stencil* (a handful of
-``jnp.roll`` shifts and fused multiply-adds -- pure VPU work, no gathers),
+``jnp.roll`` shifts and fused multiply-adds -- pure elementwise work, no gathers),
 and, for fully periodic meshes, the operator is exactly block-diagonalized
 by the n-D DFT (2^dim x 2^dim complex blocks per Fourier mode), so the
 linear solves of the projection scheme become exact direct solves at FFT
 cost.
 
-This is the TPU-native fast path replacing the gather-bound unstructured
+This is the structured fast path replacing the gather-bound unstructured
 element loop (parallel/sharded.py) on structured meshes; the two are
 verified equivalent in tests/test_structured.py (2D and 3D).
 """

@@ -2,7 +2,7 @@
 
 Each operator is a list of taps ``(c_out, c_in, shift, weight)``; applying
 it is a sum of ``jnp.roll`` shifts and fused multiply-adds over
-(*grid[, d]) tensors -- pure VPU-elementwise work that XLA fuses into a
+(*grid[, d]) tensors -- pure elementwise work that XLA fuses into a
 single pass, with none of the per-row gathers that bound the unstructured
 element loop (cf. parallel/sharded.py docstring).  Periodic wrap is
 exactly ``jnp.roll``.  All applies are dimension-agnostic: shifts carry
@@ -16,13 +16,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-# TPU matmuls default to bfloat16 inputs, which loses ~4e-3 relative per
-# contraction -- far too coarse for the DFT and symbol applies.  Default to
-# full f32 ("highest"); overridable for experiments via env.
-import os as _os
-
-_PREC = getattr(jax.lax.Precision,
-                _os.environ.get("NS_TPU_MATMUL_PRECISION", "HIGHEST"))
+# A float32 matmul on the GPU may run in TF32 (about three decimal digits
+# per contraction) -- far too coarse for the DFT and symbol applies, whose
+# results must agree with the f64 reference to f32 roundoff.
+_PREC = jax.lax.Precision.HIGHEST
 
 
 def _einsum(*args, **kw):

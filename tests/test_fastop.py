@@ -268,7 +268,7 @@ def test_rim_gather_fallback(channel_space, monkeypatch):
 def test_circulant_scan_apply_matches_unrolled(periodic_space,
                                                monkeypatch):
     """Large bands lower the circulant apply as a lax.scan (the unrolled
-    roll loop blew the remote compile at 3D scale); both lowerings use
+    loop made 3D-scale programs too large to compile); both lowerings use
     the same accumulation order, differing only by compiler FMA
     contraction (last-bit)."""
     fast = FastTaylorHood(periodic_space)

@@ -1,6 +1,6 @@
 """Dof-partitioned halo-exchange operators (parallel/halo.py).
 
-VERDICT round-1 weak #6: the cell-sharded layer psums full-length vectors
+The cell-sharded layer psums full-length vectors
 (per-device memory O(global dofs)).  Here every operator's 8-device result
 must equal the single-device reference to roundoff, while per-device
 storage is O(dofs/n_dev + halo) with halo << owned.
@@ -254,7 +254,7 @@ def test_halo_projection_step_periodic_mean_free():
 
 
 def test_projection_solver_halo_product_api_matches_single_device():
-    """VERDICT r2 item 2: an 8-device transient Dirichlet channel through
+    """An 8-device transient Dirichlet channel through
     the product solver API must match the single-device solve to roundoff.
     ``device_mesh=`` routes ProjectionSolver through the halo layer."""
     from navierstokes_tpu.fem.bcs import PressureBCType, VelocityBCType

@@ -1,7 +1,7 @@
 """Mixed-precision machinery: host float64 residual + iterative refinement.
 
-SURVEY hard part #5 / VERDICT round-1 item 3: the reference's
-||F|| <= 1e-10 contract is float64; TPUs have no fast float64 path.  The
+SURVEY hard part #5: the reference's
+||F|| <= 1e-10 contract is float64; float32 devices need a host-f64 residual.  The
 framework's answer is float32 device Krylov + float64 host residual
 accumulation (assembly/host_reference.py, StationarySolver.solve_refined).
 """
@@ -94,7 +94,7 @@ def test_jacobian_f64_is_exact():
 @pytest.mark.slow
 def test_refined_traction_and_pressure_dirichlet_f32():
     """The f64 contract on the two BC classes that floor the plain f32
-    refinement (VERDICT r2 items 7/weak 9): a pressure-Dirichlet channel
+    refinement: a pressure-Dirichlet channel
     (residual direction below f32 resolution -> host-f64 LU corrections
     engage) and periodic Couette driven by a traction BC (the f64 host
     residual must include the boundary integral).  True float32

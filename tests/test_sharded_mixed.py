@@ -1,6 +1,6 @@
 """Cell-sharded mixed Jacobian: multi-device stationary Newton stack.
 
-VERDICT r3 item 4 (stationary multi-device coverage): the mixed
+Stationary multi-device coverage: the mixed
 saddle-point Jacobian action sharded over 8 virtual devices must equal
 the single-device ``MixedOperator.linearize_at`` matvec to roundoff,
 and a full PCD-FGMRES Newton system solved through
@@ -12,6 +12,7 @@ import pytest
 
 import numpy as np
 
+import jax
 import jax.numpy as jnp
 
 from navierstokes_tpu.assembly.operators import MixedOperator
@@ -81,9 +82,21 @@ def test_pcd_newton_system_through_sharded_operator():
     assert rel < 1e-10
 
 
+def test_sharded_operator_refuses_several_gpus():
+    """The cell-sharded Newton stack does not converge on several GPUs;
+    it must refuse them up front rather than return a wrong solve."""
+    import types
+
+    _, op, _ = _setup(4)
+    gpus = np.array([types.SimpleNamespace(platform="gpu")] * 4)
+    fake = types.SimpleNamespace(axis_names=("shard",), devices=gpus)
+    with pytest.raises(NotImplementedError, match="GPU"):
+        ShardedMixedOperator(op, fake)
+
+
 @pytest.mark.slow
 def test_stationary_solver_device_mesh_full_solve():
-    """Round-4 verdict item 4: the PRODUCT API -- a full Picard->Newton
+    """The PRODUCT API -- a full Picard->Newton
     ``StationarySolver(device_mesh=...).solve()`` with the cell-sharded
     Jacobian inside PCD-FGMRES, matching the single-device solve."""
     from navierstokes_tpu.solvers import StationarySolver
@@ -110,3 +123,20 @@ def test_stationary_solver_device_mesh_full_solve():
     # both converge the SAME nonlinear problem to ||F|| <= 1e-10; the
     # iterates differ only through collective summation order
     assert np.abs(x_sharded - x_single).max() < 1e-6 * scale
+
+
+@pytest.mark.parametrize("restart", [8, 3])
+def test_fgmres_device_cycles_to_the_solution(restart):
+    """A full Krylov space converges in one cycle; a short restart needs
+    several, each counted as ``restart`` matvecs."""
+    from navierstokes_tpu.linalg.fgmres import fgmres_device
+
+    A = jnp.diag(jnp.arange(1.0, 9.0))
+    b = jnp.ones(8)
+    x, res, its = fgmres_device(lambda v: A @ v, lambda v: v, b,
+                                restart=restart, tol=1e-12, atol=0.0,
+                                max_cycles=50)
+    assert int(its) % restart == 0
+    assert int(its) == 8 if restart == 8 else int(its) > 8
+    assert float(res) < 1e-11
+    assert np.allclose(np.asarray(x), 1.0 / np.arange(1.0, 9.0))

@@ -121,8 +121,8 @@ def _temporal_order(make_solver_and_ts, dt_coarse, t_end=0.2, n_points=16):
 
 @pytest.mark.slow
 def test_theta_crank_nicolson_temporal_order():
-    """Crank-Nicolson is second order in dt (VERDICT round-1 weak #7:
-    theta schemes lacked an order-of-convergence proof -- this also pins
+    """Crank-Nicolson is second order in dt (the theta schemes need an
+    order-of-convergence proof -- this also pins
     the tableau normalization of solvers/theta.py)."""
     order, errs = _temporal_order(
         lambda dt, t_end: (ThetaSolver, GeneralThetaTimeStepping(
